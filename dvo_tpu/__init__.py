@@ -1,18 +1,17 @@
-"""dvo_tpu — TPU-native semi-dense direct visual odometry.
+"""dvo_tpu — semi-dense direct visual odometry in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-C++ implementation (KYabuuchi/direct-visual-odometry: semi-dense visual
+A JAX/XLA framework with the capabilities of the reference C++
+implementation (KYabuuchi/direct-visual-odometry: semi-dense visual
 odometry for a monocular camera, Engel/Sturm/Cremers ICCV 2013), re-designed
-TPU-first:
+as jitted device programs:
 
 - pure-functional pytrees instead of shared-mutable ``cv::Mat``;
 - static shapes + validity masks instead of ``INVALID`` sentinel scalars;
-- ``lax.scan`` Gauss-Newton iterations with convergence masking instead of
+- device-side Gauss-Newton loops with convergence tests instead of
   wall-clock loop exits;
-- MXU one-hot-matmul bilinear sampling and Pallas kernels for both hot
-  loops (photometric GN normal equations; epipolar depth search fused with
-  the Gaussian depth-filter update), each with an XLA twin — the default
-  backend per operating point is chosen by measurement (bench_kernels.py);
+- both hot loops (photometric GN normal equations; epipolar depth search
+  and the Gaussian depth-filter update) as dense gather + elementwise +
+  reduction code that XLA fuses;
 - a ``jax.sharding.Mesh`` keyframe/tile-sharded mapping and windowed
   bundle-adjustment layer the reference never had.
 

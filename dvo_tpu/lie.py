@@ -1,7 +1,7 @@
 """Batched SE(3)/SO(3) Lie algebra in pure JAX.
 
 Capability parity with the reference math layer (include/math/se3.hpp:7-46,
-src/math/se3.cpp), re-designed for TPU: every function is closed over
+src/math/se3.cpp), re-designed for jit: every function is closed over
 ``jnp`` ops only, accepts arbitrary leading batch dimensions, and is
 jit/vmap/grad-safe (small-angle branches are ``jnp.where`` selections of
 Taylor series, never Python branches — reference uses 1e-6 thresholds at
@@ -19,13 +19,15 @@ from __future__ import annotations
 import jax.numpy as jnp
 from jax import lax
 
-# 3x3/4x4 pose math is tiny but precision-critical: TPU f32 matmuls default
-# to bf16 MXU passes (~3 decimal digits), which wrecks exp/log round-trips.
+# 3x3/4x4 pose math is tiny but precision-critical: a GPU may run f32
+# matmuls in TF32 (~3 decimal digits), which wrecks exp/log round-trips.
 # Force full-precision contractions — at this size they are free.
 _HI = lax.Precision.HIGHEST
 
 
-def _mm(a, b):
+def matmul(a, b):
+    """Batched (..., i, j) @ (..., j, k) at HIGHEST precision — use for every
+    pose product instead of ``@``."""
     return jnp.einsum("...ij,...jk->...ik", a, b, precision=_HI)
 
 
@@ -56,7 +58,7 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     (which delegates to cv::Rodrigues)."""
     th = _theta(w)[..., None, None]
     W = hat(w)
-    W2 = _mm(W, W)
+    W2 = matmul(W, W)
     small = th < _SMALL
     # sin(th)/th and (1 - cos(th))/th^2 with 2nd-order Taylor fallbacks.
     # th_safe keeps the *untaken* exact branch finite in both value and
@@ -114,7 +116,7 @@ def _v_coeffs(w: jnp.ndarray):
     b = (1-cos)/th^2, c = (th-sin)/th^3 (Taylor-guarded)."""
     th = _theta(w)[..., None, None]
     W = hat(w)
-    W2 = _mm(W, W)
+    W2 = matmul(W, W)
     small = th < _SMALL
     ths = jnp.where(small, 1.0, th)  # grad-safe untaken branch (see so3_exp)
     b = jnp.where(small, 0.5 - th * th / 24.0, (1.0 - jnp.cos(ths)) / (ths * ths))
@@ -148,7 +150,7 @@ def se3_log(T: jnp.ndarray) -> jnp.ndarray:
     w = so3_log(R)
     th = _theta(w)[..., None, None]
     W = hat(w)
-    W2 = _mm(W, W)
+    W2 = matmul(W, W)
     small = th < _SMALL
     half = th * 0.5
     # (1 - th cos(th/2) / (2 sin(th/2))) / th^2  ->  1/12 as th -> 0.
@@ -166,7 +168,7 @@ def se3_log(T: jnp.ndarray) -> jnp.ndarray:
 
 def compose(xi0: jnp.ndarray, xi1: jnp.ndarray) -> jnp.ndarray:
     """log(exp(xi0) @ exp(xi1)).  Reference ``concatenate`` se3.cpp:127-131."""
-    return se3_log(_mm(se3_exp(xi0), se3_exp(xi1)))
+    return se3_log(matmul(se3_exp(xi0), se3_exp(xi1)))
 
 
 def inverse(xi: jnp.ndarray) -> jnp.ndarray:

@@ -2,7 +2,7 @@
 elimination.
 
 A capability beyond the reference (which has no joint optimization at all —
-SURVEY.md §2 parallelism note, §7 phase 5; BASELINE.json config 4): jointly
+SURVEY.md §2 parallelism note, §7 phase 5): jointly
 refine the camera poses and per-pixel inverse depths of an M-keyframe
 window by minimizing robust photometric residuals over all ordered keyframe
 pairs.
@@ -30,11 +30,11 @@ Structure (all static shapes, one jitted program):
     second cheap pass over the pair terms.
   * Camera-block accumulation works on 6x6 blocks (host-host, host-target,
     target-target) placed into an (M, M, 6, 6) grid — not on 6M-wide
-    one-hot-expanded rows, which costs M^2 more MXU work for the same
+    one-hot-expanded rows, which costs M^2 more matmul work for the same
     numbers.
 
 On a mesh, host keyframes shard over the ``kf`` axis and the reduced system
-is psum-reduced over ICI (dvo_tpu.parallel.ba).
+is psum-reduced across the axis (dvo_tpu.parallel.ba).
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def _pair_terms(window: BAWindow, T_all, k, j, cfg: BAConfig):
     xs, ys = pixel_grid(h, w_px)
 
     # Relative transform camera_k -> camera_j: T_jk = T_j^-1 T_k.
-    T_jk = lie.invert_T(T_all[j]) @ T_all[k]
+    T_jk = lie.matmul(lie.invert_T(T_all[j]), T_all[k])
     R_jk = T_jk[:3, :3]
 
     depth = window.depth[k]
@@ -186,7 +186,9 @@ def _pair_terms(window: BAWindow, T_all, k, j, cfg: BAConfig):
 def _current_window(window: BAWindow, deltas, drho) -> Tuple[BAWindow, jax.Array]:
     """Window re-linearized at the current increments: poses right-composed
     with deltas, depths updated by inverse-depth increments."""
-    T_all = jax.vmap(lambda x, d: lie.se3_exp(x) @ lie.se3_exp(d))(window.xi, deltas)
+    T_all = jax.vmap(lambda x, d: lie.matmul(lie.se3_exp(x), lie.se3_exp(d)))(
+        window.xi, deltas
+    )
     safe_d = jnp.maximum(window.depth, 1e-3)
     new_depth = 1.0 / jnp.maximum(1.0 / safe_d + drho, 1e-4)
     return dataclasses.replace(window, depth=new_depth), T_all
@@ -225,16 +227,16 @@ def host_system(window: BAWindow, T_all, k, cfg: BAConfig):
         oh_j = jax.nn.one_hot(j, m, dtype=jnp.float32)
         wJk = Jk * w_all[..., None]
         wJj = Jj * w_all[..., None]
-        # 6x6 blocks on the MXU; placement via tiny (M,M) one-hot outers.
+        # 6x6 blocks; placement via tiny (M,M) one-hot outers.
         Hkk = jnp.einsum("hwi,hwj->ij", wJk, Jk, precision=_HI)
         Hkj = jnp.einsum("hwi,hwj->ij", wJk, Jj, precision=_HI)
         Hjj = jnp.einsum("hwi,hwj->ij", wJj, Jj, precision=_HI)
         Hblk = (
             Hblk
-            + jnp.einsum("a,b,ij->abij", oh_k, oh_k, Hkk)
-            + jnp.einsum("a,b,ij->abij", oh_k, oh_j, Hkj)
-            + jnp.einsum("a,b,ij->abij", oh_j, oh_k, Hkj.T)
-            + jnp.einsum("a,b,ij->abij", oh_j, oh_j, Hjj)
+            + jnp.einsum("a,b,ij->abij", oh_k, oh_k, Hkk, precision=_HI)
+            + jnp.einsum("a,b,ij->abij", oh_k, oh_j, Hkj, precision=_HI)
+            + jnp.einsum("a,b,ij->abij", oh_j, oh_k, Hkj.T, precision=_HI)
+            + jnp.einsum("a,b,ij->abij", oh_j, oh_j, Hjj, precision=_HI)
         )
         gk = jnp.einsum("hwi,hw->i", wJk, r, precision=_HI)
         gj = jnp.einsum("hwi,hw->i", wJj, r, precision=_HI)
@@ -285,8 +287,8 @@ def coupling_dot(window: BAWindow, T_all, k, dc, cfg: BAConfig):
     def target(bdot, j):
         _, w_all, Jk, Jj, Jrho = _gated_pair_terms(window, T_all, k, j, cfg)
         dot = (
-            jnp.einsum("hwi,i->hw", Jk, dc_m[k])
-            + jnp.einsum("hwi,i->hw", Jj, dc_m[j])
+            jnp.einsum("hwi,i->hw", Jk, dc_m[k], precision=_HI)
+            + jnp.einsum("hwi,i->hw", Jj, dc_m[j], precision=_HI)
         )
         return bdot + w_all * Jrho * dot, None
 
@@ -370,9 +372,7 @@ def bundle_adjust(window: BAWindow, cfg: BAConfig = BAConfig()) -> BAResult:
     (deltas, drho), (costs, counts) = lax.scan(
         body, init, None, length=cfg.iterations
     )
-    xi = jax.vmap(lambda x, d: lie.se3_log(lie.se3_exp(x) @ lie.se3_exp(d)))(
-        window.xi, deltas
-    )
+    xi = jax.vmap(lambda x, d: lie.compose(x, d))(window.xi, deltas)
     safe_d = jnp.maximum(window.depth, 1e-3)
     depth = 1.0 / jnp.maximum(1.0 / safe_d + drho, 1e-4)
     return BAResult(xi=xi, depth=depth, costs=costs, counts=counts)

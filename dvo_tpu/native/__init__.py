@@ -1,11 +1,13 @@
 """ctypes bindings for the native C++ data plane (PNG decode, undistortion
 remap, threaded prefetch loader).
 
-Builds ``libdvonative.so`` on first use via the Makefile (g++ + libpng are
-part of the toolchain); every entry point has a pure-Python fallback in
-``dvo_tpu.utils.datasets``, so the framework works without the native lib —
-it is a throughput optimization of the host data plane, mirroring the
-reference's C++ loader (src/core/loader.cpp).
+``libdvonative.so`` is built from ``loader.cpp`` by the Makefile on first
+use in each process (``make`` is a no-op while the library is newer than
+its source; g++ and libpng are needed).  Every entry point has a host-side
+numpy fallback (``dvo_tpu.utils.png``, ``dvo_tpu.utils.datasets``), so the
+framework works without the native lib — it is a throughput optimization
+of the host data plane, mirroring the reference's C++ loader
+(src/core/loader.cpp).
 """
 
 from __future__ import annotations
@@ -27,21 +29,26 @@ class NativeUnavailable(RuntimeError):
 
 
 def _build() -> None:
-    subprocess.run(
-        ["make", "-s", "-C", _DIR], check=True, capture_output=True, text=True
-    )
+    """Run ``make``; it rebuilds only when ``loader.cpp`` is newer, and
+    renames the result into place (see the Makefile)."""
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", _DIR], check=True, capture_output=True,
+            text=True,
+        )
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", "") or str(e)
+        raise NativeUnavailable(f"native build failed: {detail.strip()}") from e
 
 
 def load_library() -> ctypes.CDLL:
-    """Load (building if needed) the native library."""
+    """Build (when stale) and load the native library.  Never loads a
+    library the build did not just confirm: a copy from another machine
+    could hold instructions this CPU lacks."""
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            _build()
-        except Exception as e:  # toolchain missing -> callers fall back
-            raise NativeUnavailable(f"native build failed: {e}") from e
+    _build()
     lib = ctypes.CDLL(_LIB_PATH)
     lib.dvo_png_info.restype = ctypes.c_int
     lib.dvo_png_info.argtypes = [

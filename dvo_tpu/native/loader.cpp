@@ -2,9 +2,9 @@
 // multithreaded prefetching sequence loader.
 //
 // The reference's data plane is C++ (src/core/loader.cpp: cv::imread +
-// cv::remap feeding the pipeline).  The TPU rebuild keeps the data plane
-// native too — the per-frame step is sub-millisecond on-device, so Python
-// PNG decode (~5-10 ms/frame) would dominate end-to-end throughput.  This
+// cv::remap feeding the pipeline).  This rebuild keeps the data plane
+// native too, so that PNG decode in Python does not bound end-to-end
+// throughput of a device-side pipeline.  This
 // library decodes + undistorts + normalizes on worker threads and hands
 // ready float32 buffers to the Python driver via ctypes.
 //

@@ -1,11 +1,7 @@
-"""Device-side image / geometry operators (pure JAX + Pallas kernels)."""
+"""Device-side image / geometry operators (pure JAX)."""
 
 from dvo_tpu.ops.image import cull_image, cull_mask, cull_intrinsic, gradients
-from dvo_tpu.ops.sampling import (
-    bilinear_dense,
-    bilinear_masked,
-    bilinear_dense_mxu,
-)
+from dvo_tpu.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu.ops.warp import (
     project,
     back_project,
@@ -22,7 +18,6 @@ __all__ = [
     "gradients",
     "bilinear_dense",
     "bilinear_masked",
-    "bilinear_dense_mxu",
     "project",
     "back_project",
     "warp_points",

@@ -6,16 +6,8 @@ bilinear with out-of-range corners falling back to the base corner) and
 corners are filled from the nearest valid corner in cyclic scan order,
 all-invalid -> invalid).
 
-Two device backends:
-
-* ``gather`` — XLA gather HLO (advanced indexing).  Simple, correct,
-  moderate speed on TPU (gathers run off the vector path).
-* ``mxu`` — one-hot matmul sampling: bilinear interpolation of N points is
-  the contraction  out[n] = sum_h sum_w  Wy[n,h] * I[h,w] * Wx[n,w]  where
-  Wy/Wx each have two nonzeros (the corner fractions).  Evaluated as
-  (Wy @ I) * Wx summed over w — two dense ops that ride the 128x128 MXU
-  instead of the scalar gather path.  This is the TPU-native formulation of
-  "sample an image at N arbitrary points".
+Both are XLA gathers (advanced indexing) plus elementwise blends, which
+XLA fuses with their consumers.
 
 Coordinates are (x, y) pixel units, matching the reference; x0 = floor
 (callers gate points to x >= 0 so truncation == floor as in the C++).
@@ -24,7 +16,6 @@ Coordinates are (x, y) pixel units, matching the reference; x0 = floor
 from __future__ import annotations
 
 import jax.numpy as jnp
-from jax import lax
 
 
 def _corners(x: jnp.ndarray, y: jnp.ndarray, w: int, h: int):
@@ -117,45 +108,3 @@ def bilinear_masked(img: jnp.ndarray, mask: jnp.ndarray, x: jnp.ndarray, y: jnp.
     top = g[0] * (1.0 - fx) + g[1] * fx
     bot = g[2] * (1.0 - fx) + g[3] * fx
     return top * (1.0 - fy) + bot * fy, any_valid
-
-
-def bilinear_dense_mxu(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray):
-    """MXU formulation of ``bilinear_dense`` for flat point vectors.
-
-    img: (H, W); x, y: (N,).  Returns (values (N,), valid (N,)).
-
-    Edge semantics: clamp-to-edge (separable).  This diverges from the
-    reference's base-corner fallback only for points in the outermost
-    fractional row/column — callers gate warped points in-bounds, so the
-    difference touches a <1 px border at most.
-
-    Builds the two-nonzero interpolation matrices with broadcasted iota
-    comparisons and contracts on the MXU:
-        rows = (Wy @ img)        # (N, H) @ (H, W) -> (N, W)
-        out  = sum_w rows * Wx   # elementwise + reduce on the VPU
-    Cost ~ N*H*W MACs; for the reference's 160x120 tracking images that is
-    ~0.4 GFLOP — microseconds on a v5e MXU, versus a scalar-path gather.
-    """
-    h, w = img.shape
-    n = x.shape[0]
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    fx = (x - x0)[:, None]
-    fy = (y - y0)[:, None]
-    x0 = x0.astype(jnp.int32)
-    y0 = y0.astype(jnp.int32)
-    in0 = (x0 >= 0) & (x0 < w) & (y0 >= 0) & (y0 < h)
-    x0c = jnp.clip(x0, 0, w - 1)[:, None]
-    y0c = jnp.clip(y0, 0, h - 1)[:, None]
-    x1c = jnp.clip(x0 + 1, 0, w - 1)[:, None]
-    y1c = jnp.clip(y0 + 1, 0, h - 1)[:, None]
-
-    hh = lax.broadcasted_iota(jnp.int32, (n, h), 1)
-    ww = lax.broadcasted_iota(jnp.int32, (n, w), 1)
-    # Clipped +1 corners collapse onto the base row/col; summing the two
-    # weight terms there reproduces the reference's corner fallback.
-    wy = jnp.where(hh == y0c, 1.0 - fy, 0.0) + jnp.where(hh == y1c, fy, 0.0)
-    wx = jnp.where(ww == x0c, 1.0 - fx, 0.0) + jnp.where(ww == x1c, fx, 0.0)
-    rows = jnp.dot(wy, img, preferred_element_type=jnp.float32)  # (N, W)
-    vals = jnp.sum(rows * wx, axis=1)
-    return vals, in0

@@ -4,13 +4,13 @@ Host keyframes of the BA window shard over the ``kf`` mesh axis: each
 device evaluates the photometric pair terms for its own host keyframes
 against a replicated copy of the window images, accumulates its partial
 camera system and Schur-complement contribution, and the reduced 6M x 6M
-system is ``psum``-reduced over ICI (a ~7 KB payload for M = 7).  The dense
+system is ``psum``-reduced across the axis (a ~7 KB payload for M = 7).  The dense
 solve is replicated (tiny); inverse-depth back-substitution stays local to
 each device's host pixels.
 
 This is SURVEY.md §2's "distributed windowed bundle adjustment with
 Schur-complement depth elimination, reduced camera system all-reduced via
-psum over ICI" — the no-reference-counterpart capability.
+psum" — the no-reference-counterpart capability.
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def bundle_adjust_sharded(
                 host, acc0, jnp.arange(m_loc)
             )
 
-            # One psum of (6M)^2 + 6M + 2 over ICI.
+            # One psum of (6M)^2 + 6M + 2 values.
             S = lax.psum(S_loc, axis)
             g_red = lax.psum(g_loc, axis)
             cost = lax.psum(cost, axis)
@@ -157,9 +157,7 @@ def bundle_adjust_sharded(
             iteration, init, None, length=cfg.iterations
         )
 
-        xi = jax.vmap(lambda x, d: lie.se3_log(lie.se3_exp(x) @ lie.se3_exp(d)))(
-            win_full.xi, deltas
-        )
+        xi = jax.vmap(lie.compose)(win_full.xi, deltas)
         safe_d = jnp.maximum(win_host.depth, 1e-3)
         depth_loc = 1.0 / jnp.maximum(1.0 / safe_d + drho_loc, 1e-4)
         return xi, depth_loc, costs, counts

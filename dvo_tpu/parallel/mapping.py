@@ -5,7 +5,7 @@ computes its epipolar observations against replicated current-frame and
 born-keyframe images (the search lines roam the whole born image, and at VO
 resolutions replication is far cheaper than halo exchange).  Outputs stay
 row-sharded (the maps are only ever consumed row-wise); the scalar stats are
-psum-reduced over ICI.
+psum-reduced.
 """
 
 from __future__ import annotations

@@ -3,12 +3,12 @@
 Axes:
   * ``tile`` — image-row tiles of the dense per-pixel loops (tracking GN,
     mapping epipolar march).  Collectives: ``psum`` of 6x6 normal-equation
-    blocks and scalar stats — tiny payloads that ride ICI.
+    blocks and scalar stats — tiny payloads, one per GN iteration.
   * ``kf``   — keyframes of the BA window / map blocks.  Collectives:
     ``psum`` of the reduced camera system after Schur elimination.
 
-On a single host this maps onto ``jax.devices()`` directly; on a pod slice
-initialise ``jax.distributed`` first and the same code spans hosts.
+The axes follow the algorithm only: devices are taken in ``jax.devices()``
+order, which suits cards joined all to all.
 """
 
 from __future__ import annotations

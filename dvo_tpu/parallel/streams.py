@@ -1,25 +1,16 @@
 """Multi-stream scaling over the device mesh — one (or more) cameras per
-chip.
+device.
 
-Round-3 measurement (BASELINE.md "Single-chip multi-stream scaling"):
-vmapping B independent VO pipelines onto ONE chip batches the Pallas
-kernels as a leading grid dimension whose steps execute sequentially on
-the single TensorCore, so aggregate throughput saturates at ~1.3x — the
-per-stream kernel MACs are irreducible (each stream gathers from its own
-reference/ring stacks), and a serial core cannot amortize them.  Linear
-multi-stream scaling therefore belongs to the DEVICE MESH: each chip runs
-its own streams' full device-side chunked driver
+Each device runs its own streams' full device-side chunked driver
 (models/odometry.monocular_run), with no cross-stream communication at
 all — the embarrassingly-parallel layout the reference (single-camera,
 single-process; SURVEY.md §2 "parallelism strategies") never needed.
 
 ``monocular_run_streams`` shard_maps the chunked driver over a ``stream``
 mesh axis: B streams on D devices run B/D per-device vmapped pipelines.
-With B == D the vmap is width-1 — each chip executes exactly the
-single-stream program that benches at full throughput, so aggregate
-scaling is linear in devices by construction (verified for correctness on
-the virtual CPU mesh in tests/test_parallel.py; real-ICI scaling is
-hardware-gated like the rest of the scaling story, BASELINE.md).
+With B == D the vmap is width-1 — each device executes exactly the
+single-stream program (verified for correctness on the virtual CPU mesh
+in tests/test_parallel.py).
 """
 
 from __future__ import annotations

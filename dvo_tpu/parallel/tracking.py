@@ -1,13 +1,13 @@
 """Tile-sharded photometric GN tracking.
 
 The dense per-pixel linearization (models/tracker.gn_terms) is embarrassingly
-parallel over pixels; across chips we shard image *rows* on the ``tile``
+parallel over pixels; across devices we shard image *rows* on the ``tile``
 mesh axis.  Per device: its row block of (obj gray/mask, ref depth/sigma)
 plus a replicated copy of the gather targets (ref gray/gradients — warped
 points cross tile boundaries, and at VO resolutions the whole image is a few
 hundred KB, far cheaper to replicate than to halo-exchange).  The only
 communication is a ``psum`` of the 6x6 normal matrix, the 6-vector gradient,
-and two scalars — a ~200-byte payload over ICI per GN iteration.
+and two scalars — a ~200-byte payload per GN iteration.
 
 This is the scaling pattern the single-chip pipeline shares all math with:
 ``gn_terms`` is literally the same function, called with a row offset.

@@ -8,8 +8,8 @@ PNG / 5000 -> meters (TUM convention, loader.cpp:145), undistortion via a
 precomputed nearest-neighbour remap with INVALID border fill
 (loader.cpp:39-41).
 
-The decode path uses PIL here; ``dvo_tpu.native`` provides a C++
-decode/remap/prefetch fast path with the same semantics.
+``dvo_tpu.native`` provides the C++ decode/remap/prefetch fast path; the
+numpy + zlib decoder here (``utils/png.py``) has the same semantics.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from dvo_tpu.config import INVALID
+from dvo_tpu.utils.png import decode_gray
 
 TUM_DEPTH_SCALE = 5000.0  # loader.cpp:145
 
@@ -143,23 +144,14 @@ class KinectCalibration:
         return KinectCalibration(rgb=rgb, depth=depth, invT=invT)
 
 
-def _decode_gray(path: str) -> np.ndarray:
-    from PIL import Image
-
-    img = Image.open(path)
-    if img.mode in ("I;16", "I"):
-        return np.asarray(img, np.float32)
-    return np.asarray(img.convert("L"), np.float32)
-
-
 def load_gray_normalized(path: str) -> np.ndarray:
     """8-bit image -> gray in [0, 1] (loader.cpp:55-63)."""
-    return _decode_gray(path) / 255.0
+    return decode_gray(path) / 255.0
 
 
 def load_depth_meters(path: str, scale: float = TUM_DEPTH_SCALE) -> np.ndarray:
     """16-bit depth PNG -> meters; 0 stays 0 = missing (loader.cpp:137-147)."""
-    return _decode_gray(path) / scale
+    return decode_gray(path) / scale
 
 
 # ---------------------------------------------------------------- undistortion

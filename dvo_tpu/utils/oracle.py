@@ -3,7 +3,7 @@ generator (SURVEY.md §7 phase 0).
 
 This module re-states the reference's *behavioral contract* in the most
 literal scalar form possible (per-pixel Python loops, INVALID sentinel and
-all) so the vectorized JAX/Pallas implementations can be asserted against
+all) so the vectorized JAX implementations can be asserted against
 it on small images.  It is test-only code: clarity over speed.
 
 Each function cites the reference source it reproduces.

@@ -1,4 +1,4 @@
-"""Dataset recorder — the reference capture tool's role, TPU-framework shaped.
+"""Dataset recorder — the reference capture tool's role, as a library.
 
 The reference's ``test/record.cpp:21-54`` opens a webcam, shows a preview
 window, and on toggle writes ``recorded/%04d.png`` (the numbered-PNG layout

@@ -3,7 +3,7 @@
 The reference's ``USE_CAMERA`` build (main.cpp:10,26-30) pulls frames from a
 webcam and odometrizes them as they arrive, drawing the pose trail live;
 its companion capture tool (test/record.cpp:21-54) writes numbered PNGs
-into a directory.  The TPU-native equivalent keeps the same contract with a
+into a directory.  This equivalent keeps the same contract with a
 batch-friendly transport: a **directory watcher** consumes frames as a
 producer (camera process, record.cpp, rsync, ...) drops them, feeding the
 same jitted per-frame step used by the offline drivers, with an optional
@@ -104,7 +104,6 @@ def run_stream(
 
     from dvo_tpu.models.odometry import monocular_init, monocular_step
     from dvo_tpu.utils.datasets import build_undistort_map, load_gray_normalized, remap_nearest
-    from dvo_tpu.utils.metrics import device_sync
     from dvo_tpu.utils.trajectory import tum_line
 
     srcmap = (
@@ -155,7 +154,7 @@ def run_stream(
                 T = np.eye(4, dtype=np.float32)
             else:
                 state, res = monocular_step(state, gray, mask, K, cfg)
-                device_sync(res.T_world)
+                jax.block_until_ready(res.T_world)
                 T = np.asarray(res.T_world)
             secs.append(time.perf_counter() - t0)
             poses.append(T)

@@ -3,8 +3,7 @@
 The reference only ever *draws* its trajectory (main.cpp:49-54 via the GLFW
 submodule) and publishes no accuracy numbers (SURVEY.md §6).  The rebuild
 writes TUM-format files (timestamp tx ty tz qx qy qz qw) and evaluates
-absolute trajectory error with the standard Horn/Umeyama alignment — the
-metric BASELINE.json demands.
+absolute trajectory error with the standard Horn/Umeyama alignment.
 """
 
 from __future__ import annotations

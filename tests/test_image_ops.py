@@ -4,11 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from dvo_tpu.ops.image import cull_image, cull_intrinsic, gradients
-from dvo_tpu.ops.sampling import (
-    bilinear_dense,
-    bilinear_dense_mxu,
-    bilinear_masked,
-)
+from dvo_tpu.ops.sampling import bilinear_dense, bilinear_masked
 from dvo_tpu.ops.warp import warp_image
 from dvo_tpu.utils import oracle
 
@@ -71,17 +67,6 @@ def test_bilinear_dense_matches_oracle(rng):
         else:
             assert valid[i]
             np.testing.assert_allclose(vals[i], ref, atol=1e-5)
-
-
-def test_bilinear_mxu_matches_gather(rng):
-    img = smooth_image(rng, 16, 128)
-    h, w = img.shape
-    x = rng.uniform(0, w - 1.01, 300).astype(np.float32)
-    y = rng.uniform(0, h - 1.01, 300).astype(np.float32)
-    v1, ok1 = bilinear_dense(jnp.asarray(img), jnp.asarray(x), jnp.asarray(y))
-    v2, ok2 = bilinear_dense_mxu(jnp.asarray(img), jnp.asarray(x), jnp.asarray(y))
-    np.testing.assert_array_equal(np.asarray(ok1), np.asarray(ok2))
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-5)
 
 
 def test_bilinear_masked_matches_oracle(rng):

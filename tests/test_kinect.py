@@ -1,17 +1,12 @@
 """Kinect dual-camera registration tests: map_depth_to_gray semantics
 (reference Transform::mapDepthtoGray, transform.cpp:53-78) and the
-registered-RGB-D sequence driver on real reference data."""
-
-import os
+registered-RGB-D sequence driver on a generated Kinect-rig sequence."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from dvo_tpu.ops.warp import map_depth_to_gray
-
-KINECT_DATA = "/root/reference/data/kinectv2_00"
 
 
 def test_identity_registration(rng):
@@ -89,14 +84,16 @@ def test_different_resolutions(rng):
     )
 
 
-@pytest.mark.skipif(not os.path.isdir(KINECT_DATA), reason="reference data absent")
-def test_kinect_driver_real_data():
-    """3 frames of the reference kinectv2_00 sequence through the full
-    registered pipeline (mono mode seeded with measured depth)."""
+def test_kinect_driver_real_data(synth_kinect_seq):
+    """3 frames of a generated Kinect v2 rig sequence (1920x1080 colour,
+    512x424 depth, ~5 mm/frame) through the full registered pipeline
+    (mono mode seeded with measured depth)."""
+    import os
+
     from dvo_tpu.utils.datasets import InfoSequence, KinectCalibration
     from dvo_tpu.utils.runner import run_kinect
 
-    seq = InfoSequence(os.path.join(KINECT_DATA, "info.txt"))
+    seq = InfoSequence(os.path.join(synth_kinect_seq, "info.txt"))
     ts, poses, secs = run_kinect(
         seq, KinectCalibration.kinect_v2(), mode="mono", max_frames=3,
         undistort=False,

@@ -67,15 +67,6 @@ def test_vo_mesh_shapes():
     assert m1.shape["kf"] * m1.shape["tile"] == 1
 
 
-def test_pod_mesh_and_initialize():
-    from dvo_tpu.parallel.distributed import initialize, pod_mesh
-
-    initialize()  # single-process: must be a no-op
-    assert dict(pod_mesh().shape) == {"kf": 1, "tile": 8}
-    assert dict(pod_mesh(kf=2, tile=4).shape) == {"kf": 2, "tile": 4}
-    assert dict(pod_mesh(kf=4).shape) == {"kf": 4, "tile": 2}
-
-
 @pytest.mark.slow
 def test_sharded_depth_update_matches_single_device(rng):
     from dvo_tpu.config import MapperConfig

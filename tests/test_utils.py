@@ -1,5 +1,5 @@
-"""Host-utility tests: trajectory IO, ATE, dataset parsing (against the
-real reference data checked in under /root/reference/data)."""
+"""Host-utility tests: trajectory IO, ATE, dataset parsing (against
+sequences from the seeded generator, utils/synth.py)."""
 
 import os
 
@@ -22,7 +22,6 @@ from dvo_tpu.utils.trajectory import (
     write_tum,
 )
 
-REF_DATA = "/root/reference/data"
 
 
 def test_quaternion_roundtrip(rng):
@@ -85,22 +84,23 @@ def test_associate():
     assert pairs == [(0, 0), (2, 2)]
 
 
-@pytest.mark.skipif(not os.path.isdir(REF_DATA), reason="reference data absent")
-def test_info_sequence_mono():
-    seq = InfoSequence(os.path.join(REF_DATA, "logicool0", "info.txt"))
-    assert len(seq) == 501  # lines in logicool0/info.txt
+def test_info_sequence_mono(synth_mono_seq):
+    seq = InfoSequence(os.path.join(synth_mono_seq, "info.txt"))
+    assert len(seq) == 12  # frames the fixture generated
+    assert [it.timestamp for it in seq] == [float(i) for i in range(12)]
     first = seq.items[0]
     assert first.gray_path.endswith("0000.png")
     assert first.depth_path is None
     assert os.path.isfile(first.gray_path)
 
 
-@pytest.mark.skipif(not os.path.isdir(REF_DATA), reason="reference data absent")
-def test_info_sequence_kinect_pairs():
-    seq = InfoSequence(os.path.join(REF_DATA, "KINECT_50MM", "info.txt"))
-    assert len(seq) == 17  # lines in KINECT_50MM/info.txt
+def test_info_sequence_kinect_pairs(synth_kinect_seq):
+    seq = InfoSequence(os.path.join(synth_kinect_seq, "info.txt"))
+    assert len(seq) == 3  # frames the fixture generated
     item = seq.items[0]
-    assert item.depth_path is not None and item.depth_path.endswith("depth01.png")
+    assert item.gray_path.endswith(os.path.join("rgb", "0000.png"))
+    assert item.depth_path is not None
+    assert item.depth_path.endswith(os.path.join("depth", "0000.png"))
     assert os.path.isfile(item.gray_path) and os.path.isfile(item.depth_path)
 
 
